@@ -3,7 +3,7 @@ programs (FastSV connected components, Louvain, triangle count, and the
 permutation-network fast path).
 
 The interactive DSL (examples 01-05) dispatches one engine call per
-statement, like the reference; `graphblas_tpu.models` is the TPU-native way
+statement, like the reference; `graphblas_tpu.models` is the compiled way
 to run the same recipes at full speed.
 """
 

@@ -3,7 +3,7 @@
 The same GraphBLAS statements scale from toy graphs to RMAT scale-19: the
 sparse container routes ``contrib.vxm(A, plus_first)`` through the
 permutation-network SpMV engine (reference workload: Pagerank Demo
-notebook).  Set GRAPHBLAS_PR_SCALE to run bigger graphs on TPU.
+notebook).  Set GRAPHBLAS_PR_SCALE to run bigger graphs on a GPU.
 """
 
 import os

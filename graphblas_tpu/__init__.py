@@ -1,4 +1,4 @@
-"""graphblas_tpu: a TPU-native GraphBLAS.
+"""graphblas_tpu: a GraphBLAS on JAX.
 
 Same user-facing model as python-graphblas (reference:
 /root/reference/graphblas/__init__.py): sparse ``Matrix``/``Vector``/``Scalar``
@@ -7,7 +7,7 @@ delayed-expression DSL whose signature move is::
 
     C(mask.S, accum=binary.plus, replace=True) << A.mxm(B, semiring.min_plus)
 
-The compute engine, however, is JAX/XLA/Pallas on TPU instead of
+The compute engine, however, is JAX/XLA/Pallas on the GPU instead of
 SuiteSparse:GraphBLAS over cffi.  Collections are stored as static-shape
 device arrays (dense-masked blocks and blocked-sparse formats), every
 operation family lowers to jit-compiled kernels, and multi-chip execution
@@ -18,6 +18,7 @@ Like the reference, heavy submodules load lazily on first attribute access
 """
 
 import importlib as _importlib
+import os as _os
 
 from . import exceptions  # noqa: F401
 from .core.config import Config as _Config
@@ -50,8 +51,8 @@ config = _Config(
         # When True, *.numpy operator namespaces alias numpy-named ops to builtins
         "mapnumpy": True,
         # When True, 64-bit dtypes are enabled in JAX at first use.  GraphBLAS
-        # default dtypes are FP64/INT64, so this defaults to True; TPU perf
-        # paths use 32-bit/bf16 regardless.
+        # default dtypes are FP64/INT64, so this defaults to True; the plan
+        # engine's channels are 32-bit regardless.
         "enable_x64": True,
     },
 )
@@ -132,26 +133,32 @@ def _init(backend_name="jax", blocking=None, automatic=False):
 
     if config.get("enable_x64"):
         jax.config.update("jax_enable_x64", True)
-    # Test/dev hook: force a platform (e.g. "cpu") regardless of what a
-    # site-installed plugin pinned.  Used by the test suite to run the
-    # engine on a virtual multi-device CPU mesh.
+    # Test hook: the test suite forces "cpu" to run the engine on a virtual
+    # multi-device CPU mesh.
     platform = os.environ.get("GRAPHBLAS_TPU_PLATFORM")
     if platform:
         jax.config.update("jax_platforms", platform)
-    # Persistent XLA compilation cache: TPU compiles (especially via remote
-    # compile tunnels) are expensive; cache them across processes.
-    cache_dir = os.environ.get(
-        "GRAPHBLAS_TPU_XLA_CACHE", os.path.expanduser("~/.cache/graphblas_tpu/xla")
-    )
-    if cache_dir and not jax.config.jax_compilation_cache_dir:
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        try:
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        except AttributeError:
-            pass
+    _configure_compile_cache(jax)
     backend = "jax"
     _initialized = True
+
+
+# Persistent XLA compilation cache when JAX_COMPILATION_CACHE_DIR is unset:
+# a fixed directory inside the checkout (listed in .gitignore).  The path is
+# part of the cache key, so it never varies between runs.
+COMPILE_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
+)
+
+
+def _configure_compile_cache(jax):
+    """JAX reads JAX_COMPILATION_CACHE_DIR itself; only when it is unset does
+    the package point the cache at ``COMPILE_CACHE_DIR``."""
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    _os.makedirs(COMPILE_CACHE_DIR, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def __getattr__(name):

@@ -1033,8 +1033,7 @@ def do_assign(self, resolved, value, *, mask, accum, replace, is_submask):
         start = _dm._contig_start(idx, self.shape[0])
         if start is not None:
             # slice-shaped region: dynamic_update_slice instead of an
-            # n-sized scatter (the scatter costs ~12 ms/M elements on TPU
-            # and dominated compiled DSL loop bodies)
+            # n-sized scatter
             sv, ss, rsel = _dm.scatter_region_vector_contig(
                 cv, cs, _dm.tmap(lambda a: a.reshape(-1), av), as_.reshape(-1), start=start
             )

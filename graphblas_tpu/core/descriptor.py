@@ -4,7 +4,7 @@ The reference maps 5 bool flags onto 32 pre-built C descriptor objects
 (/root/reference/graphblas/core/descriptor.py:51-89) and routes SuiteSparse
 extras (nthreads, axb_method, ...) through a descriptor factory (:92-156).
 Here a descriptor is a plain dataclass consumed by the engine dispatch; the
-TPU-relevant extras are lowering hints (mxm strategy, target sharding).
+Engine extras are lowering hints (mxm strategy, target sharding).
 """
 
 from dataclasses import dataclass, field
@@ -17,7 +17,7 @@ class Descriptor:
     mask_structure: bool = False
     transpose_first: bool = False
     transpose_second: bool = False
-    # TPU engine hints (analogue of SuiteSparse descriptor extras,
+    # engine hints (analogue of SuiteSparse descriptor extras,
     # reference: core/ss/descriptor.py:19-233)
     opts: dict = field(default_factory=dict, compare=False, hash=False)
 

@@ -161,15 +161,15 @@ UINT64 = DataType("UINT64", "GrB_UINT64", np.uint64)
 FP32 = DataType("FP32", "GrB_FP32", np.float32)
 FP64 = DataType("FP64", "GrB_FP64", np.float64)
 # Complex types are a SuiteSparse extension (GxB); JAX supports complex64/128
-# on CPU; TPU support is partial — kept for API parity.
+# on the CPU and the GPU — kept for API parity.
 FC32 = DataType("FC32", "GxB_FC32", np.complex64)
 FC64 = DataType("FC64", "GxB_FC64", np.complex128)
 # Index type used for positional ops and index extraction
 # (reference: core/dtypes.py:444-457 `_INDEX`)
 _INDEX = DataType("UINT64", "GrB_Index", np.uint64)
 
-# bfloat16 is a TPU-native extension type (no reference counterpart): it is
-# what the MXU consumes.  Registered under the ``tx`` (TPU extension) spelling.
+# bfloat16 is an extension type (no reference counterpart): the tensor
+# cores' native input.  Registered under the ``tx`` (extension) spelling.
 try:  # pragma: no cover - availability depends on ml_dtypes
     import ml_dtypes as _ml_dtypes
 
@@ -269,39 +269,36 @@ def _promote(type1, type2):
 # --- 64-bit execution policy (docs/types.md) ---------------------------------
 #
 # The reference's default dtype is FP64 (SuiteSparse computes in C doubles).
-# TPU hardware has no 64-bit datapath: Mosaic/VPU is 32-bit, and the MXU is
-# narrower still.  The contract: FP64/INT64/UINT64 are fully supported
-# *collection* dtypes everywhere, but on a 32-bit execution platform (TPU, or
-# CPU with ``enable_x64=False``) the engine computes and stores values at
-# 32-bit width; host materialization (``to_coo``/``to_dense``) returns the
-# declared 64-bit numpy dtype.  ``executes_64bit`` reports the active policy;
-# ``default_float``/``default_int`` are the platform-adaptive choices model
-# code uses instead of hard-coding FP64/INT64 (hard-coded device ``astype``
-# to 64-bit dtypes under a 32-bit policy is what produced the silent
-# truncation warnings flagged in VERDICT r3 weak #7).
+# The contract: FP64/INT64/UINT64 are fully supported *collection* dtypes
+# everywhere; with ``enable_x64=False`` the engine computes and stores values
+# at 32-bit width, and host materialization (``to_coo``/``to_dense``) returns
+# the declared 64-bit numpy dtype.  ``executes_64bit`` reports the active
+# policy; ``default_float``/``default_int`` are the policy-adaptive choices
+# model code uses instead of hard-coding FP64/INT64 (a device ``astype`` to
+# a 64-bit dtype under a 32-bit policy warns and truncates).
 
 
 def executes_64bit():
     """True when device arrays carry 64-bit dtypes at full width."""
     import jax
 
-    return bool(jax.config.jax_enable_x64) and jax.default_backend() != "tpu"
+    return bool(jax.config.jax_enable_x64)
 
 
 def default_float():
-    """FP64 on 64-bit platforms, FP32 on 32-bit ones (TPU)."""
+    """FP64 under the 64-bit policy, FP32 otherwise."""
     return FP64 if executes_64bit() else FP32
 
 
 def default_int():
-    """INT64 on 64-bit platforms, INT32 on 32-bit ones (TPU)."""
+    """INT64 under the 64-bit policy, INT32 otherwise."""
     return INT64 if executes_64bit() else INT32
 
 
 def executed_np(np_type):
     """The numpy dtype DEVICE arrays actually carry for ``np_type`` under the
     64-bit contract: 64-bit float/int dtypes narrow to their 32-bit
-    counterparts on 32-bit platforms (astype at the declared width would
+    counterparts under the 32-bit policy (astype at the declared width would
     warn and truncate to the same thing)."""
     np_type = np.dtype(np_type)
     if not executes_64bit() and np_type.itemsize == 8 and np_type.kind in "fiu":

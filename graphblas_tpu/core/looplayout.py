@@ -3,7 +3,7 @@
 The n-space plan SpMV pays THREE 11-stage permutation networks per pass
 (place, perm, collect — ops/fastspmv.py); iterative algorithms only need TWO
 when the state lives in the edge space at dst-seg-last slots (the v3 loop
-layout the hand-written models use, ops/fastspmv.py:752+).  This module lets
+layout the hand-written models use, ops/fastspmv.py).  This module lets
 ``gb.loop``/``gb.until`` (core/compiler.py) trace a USER-WRITTEN DSL body in
 that layout, closing the DSL-vs-model gap without any model-specific code:
 
@@ -16,16 +16,17 @@ that layout, closing the DSL-vs-model gap without any model-specific code:
   slots (``is_last``), so reduces over struct are exact; complemented masks
   are re-universed to the state slots (Mask._bits).
 - ``A.mxv(x)`` against the context matrix routes the state through the
-  composed loop network + fill + perm + one fused scan: 2 networks/SpMV.
+  composed loop network + fill + perm + one fused reduce: 2 networks/SpMV.
 - Anything the layout cannot represent (positional ops, non-full-slice
   indexing, a second matrix/direction, sparse/partial SpMV inputs) raises
   ``LayoutUnsupported``; the compiler falls back to the n-space lowering,
   so the transform is performance-only — never semantics-affecting.
 
 The reference has no analogue (SuiteSparse fuses per statement, not across
-statements); this is the TPU-native answer to its "1 statement = 1 fused
-call" promise (/root/reference/docs/user_guide/fundamentals.rst:118-120):
-one loop = one program *at model speed*.
+statements); this extends its "1 statement = 1 fused call" promise
+(reference docs/user_guide/fundamentals.rst:118-120) to one loop = one
+program.  The layout is a plan-engine feature: it engages only under
+``mxv_strategy="plan"`` (core/sparse.uses_plan_engine).
 """
 
 import contextvars
@@ -182,7 +183,7 @@ class EdgeLayoutCtx:
 
 
 # ---------------------------------------------------------------------------
-# the edge-layout SpMV (2 networks: loop_net + perm; one fused scan)
+# the edge-layout SpMV (2 networks: loop_net + perm; one fused reduce)
 # ---------------------------------------------------------------------------
 
 _EDGE_ADDS = {"plus", "min", "max", "any"}
@@ -233,17 +234,12 @@ def edge_mxv(ctx, sp, pull, a_first, xv, xs, sr, out_dtype):
         wrap = (out_np.itemsize * 8, out_np.kind == "i")
     ch = jnp.int32 if channel == np.int32 else jnp.float32
 
-    from ..ops.pallas_scan import segmented_scan_contrib
-
     x_start = apply_plan(xv.astype(ch), plan.loop_plan)  # state -> start slots
     xe = _fs._seg_fill(plan, x_start)
     xe_dst = apply_plan(xe, plan.perm_plan)
     w = plan.w_dst_order if plan_mul in ("times", "plus", "second") else None
     op_add = {"plus": "add", "min": "min", "max": "max", "any": "max"}[add_name]
-    scanned = segmented_scan_contrib(
-        xe_dst, w, plan.valid_dst_order, plan.seg_start_dst, op_add, plan_mul,
-        interpret=_fs._interpret_scan(), wrap=wrap,
-    )
+    scanned = _fs._reduce_dst(plan, xe_dst, w, plan.valid_dst_order, op_add, plan_mul, wrap=wrap)
     ys = ctx.ys_nonempty
     yv = jnp.where(jnp.asarray(ys), scanned.astype(out_np), jnp.zeros((), out_np))
     return yv, ys

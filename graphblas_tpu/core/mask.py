@@ -1,7 +1,7 @@
 """The four GraphBLAS mask types.
 
 Reference: /root/reference/graphblas/core/mask.py:133-202 (mask classes) and
-:205-513 (the 16-combination mask-combining recipe tables).  Because the TPU
+:205-513 (the 16-combination mask-combining recipe tables).  Because the
 engine resolves any mask to a dense bool array, mask combination here is a
 single engine op instead of a recipe table.
 """

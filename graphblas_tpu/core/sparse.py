@@ -2,12 +2,13 @@
 
 The reference scales past dense storage with CSR/CSC/hypersparse formats
 inside SuiteSparse (reference: /root/reference/graphblas/core/ss/matrix.py:537+,
-index space to 2^60 per graphblas/__init__.py:210-213).  The TPU-native
-analogue is this container: canonical row-major COO on the host (int64
-indices — dimensions way past device memory are representable), device
-caches per sort order, and a lazily-built permutation-network ``SpmvPlan``
-per direction so the DSL's ``A.mxv(v)`` / ``v.vxm(A)`` run the O(E) fast
-engine (ops/fastspmv) instead of dense-masked kernels.
+index space to 2^60 per graphblas/__init__.py:210-213).  The analogue here
+is this container: canonical row-major COO on the host (int64 indices —
+dimensions way past device memory are representable) and device caches per
+sort order, so the DSL's ``A.mxv(v)`` / ``v.vxm(A)`` run O(E) gather+segment
+SpMV instead of dense-masked kernels; under ``mxv_strategy="plan"`` a
+lazily-built permutation-network ``SpmvPlan`` per direction runs the
+network engine (ops/fastspmv) instead.
 
 Dispatch contract: a ``Matrix`` whose ``_sparse`` is set has NO dense
 ``_values``/``_struct``; touching them densifies if the dense size is under
@@ -55,7 +56,7 @@ def _densify_limit():
 
 
 def _index_np():
-    """Device index dtype: int64 on 64-bit platforms, int32 on TPU
+    """Device index dtype: int64 under the 64-bit policy, int32 otherwise
     (the 64-bit execution contract, docs/types.md — avoids per-op
     truncation warnings from device astype(int64) with x64 off)."""
     from . import dtypes as _dtm
@@ -83,7 +84,6 @@ class SparseMatrixData:
         "_sharded_plans",
         "_col_order",
         "_stats",
-        "_bg_builds",
     )
 
     def __init__(self, rows, cols, vals, nrows, ncols):
@@ -97,7 +97,6 @@ class SparseMatrixData:
         self._sharded_plans = {}
         self._col_order = None
         self._stats = {}
-        self._bg_builds = {}
 
     # ------------------------------------------------------------------
     # construction
@@ -238,39 +237,6 @@ class SparseMatrixData:
             with jax.ensure_compile_time_eval():
                 return self._plan_build(direction, _fs, loop=loop)
         return cached
-
-    def plan_ready(self, direction):
-        return direction in self._plans
-
-    def plan_background(self, direction):
-        """Kick off the plan build in a daemon thread (idempotent).
-
-        Lazy-build UX: the first eager mxv on a big graph must not stall for
-        the multi-second pattern analysis (SuiteSparse's first GrB_mxm is
-        effectively instant, reference core/matrix.py:2321) — the generic
-        gather+segment path serves dispatches until the plan is ready, then
-        the engine switches over.  The analysis releases the GIL inside the
-        native router and numpy, so the build genuinely overlaps compute.
-        """
-        import threading
-
-        if direction in self._plans or direction in self._bg_builds:
-            return
-        done = threading.Event()
-
-        def work():
-            try:
-                self.plan(direction)
-            except Exception:  # pragma: no cover - background resilience
-                pass
-            finally:
-                done.set()
-
-        t = threading.Thread(
-            target=work, name=f"gbtpu-plan-{direction}", daemon=True
-        )
-        self._bg_builds[direction] = (t, done)
-        t.start()
 
     def _plan_build(self, direction, _fs, loop=False):
         cached = self._plans.get(direction)
@@ -508,24 +474,7 @@ def sparse_mxv(sp, pull, a_first, xv, xs, sr, out_dtype):
         return _ll.edge_mxv(lctx, sp, pull, a_first, xv, xs, sr, out_dtype)
 
     plan_mul = _plan_mul_name(mul, a_first, pos)
-    use_plan = _plan_allowed(sp, strategy, add_name, plan_mul, out_np, pos, xv)
-    if use_plan and strategy != "plan":
-        # lazy-build UX ("auto"): an EAGER dispatch must not stall for the
-        # pattern analysis — build in the background and serve this call on
-        # the generic path.  Under a trace (compiled loop) the choice is
-        # baked into the program, so block and build as before.  Explicit
-        # strategy "plan" always blocks.
-        from jax._src import core as _jcore
-
-        direction = "pull" if pull else "push"
-        if (
-            not sp.plan_ready(direction)
-            and _jcore.trace_state_clean()
-            and os.environ.get("GRAPHBLAS_TPU_PLAN_BACKGROUND", "1") == "1"
-        ):
-            sp.plan_background(direction)
-            use_plan = False
-    if use_plan:
+    if _plan_allowed(sp, strategy, add_name, plan_mul, out_np, pos, xv):
         channel = _plan_channel(sp, strategy, add_name, plan_mul, out_np, pos, xv)
         yv, ys = _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_np, channel)
         if yv.shape[0] != n_out:
@@ -624,7 +573,7 @@ def _plan_channel(sp, strategy, add_name, plan_mul, out_np, pos, xv):
     - FP32: f32 channel (native).
     - INT8/16/32, UINT8/16, BOOL: int32 channel, bit-exact — modular
       arithmetic commutes with truncation, and min/max compare contributions
-      wrapped to the output width in-kernel (pallas_scan wrap=).
+      wrapped to the output width before the scan (segscan wrap=).
     - UINT32: int32 channel for plus/any (modular / representation-agnostic);
       min/max would compare sign-flipped — generic path.
     - INT64/UINT64: int32 channel only when a conservative range bound on
@@ -673,15 +622,19 @@ def _plan_channel(sp, strategy, add_name, plan_mul, out_np, pos, xv):
     return None
 
 
-def _plan_allowed(sp, strategy, add_name, plan_mul, out_np, pos, xv):
-    if _plan_channel(sp, strategy, add_name, plan_mul, out_np, pos, xv) is None:
-        return False
-    if strategy == "plan":
-        return True
-    # auto: the plan build is host-side work worth it for big graphs on TPU
-    import jax
+def uses_plan_engine(strategy):
+    """The one rule for choosing the permutation-network plan engine over
+    the gather+segment path, shared by eager mxv/vxm (``_plan_allowed``) and
+    the compiled-loop edge layout (core/compiler.py).  Only the explicit
+    ``mxv_strategy="plan"`` takes the plan engine: "auto" stays on
+    gather+segment and never builds a network on the host."""
+    return strategy == "plan"
 
-    return jax.default_backend() == "tpu" and sp.nvals >= (1 << 17)
+
+def _plan_allowed(sp, strategy, add_name, plan_mul, out_np, pos, xv):
+    return uses_plan_engine(strategy) and (
+        _plan_channel(sp, strategy, add_name, plan_mul, out_np, pos, xv) is not None
+    )
 
 
 def _plan_mxv(sp, pull, xv, xs, add_name, plan_mul, pos, out_np, channel):
@@ -940,8 +893,8 @@ class SpgemmPlan:
 
 
 def _build_reduce_net(buckets, n_entries):
-    """Static permutation networks replacing the per-entry scatter combine
-    (XLA scatter ~90 M elem/s; an 11-stage network pass ~5 G elem/s)."""
+    """Static permutation networks grouping the task partials by entry for
+    the segmented combine: (net1, net2, segment ids, has_task)."""
     import jax.numpy as jnp
 
     from ..ops.fastspmv import _complete_permutation
@@ -963,17 +916,18 @@ def _build_reduce_net(buckets, n_entries):
     seg_start = np.zeros(tg_pad, bool)
     seg_start[0] = True
     seg_start[1:] = sorted_gids[1:] != sorted_gids[:-1]
+    from ..ops.segscan import segment_ids
     counts = np.bincount(sorted_gids[:nvalid], minlength=n_entries)
     has_task = counts > 0
     last = np.searchsorted(sorted_gids[:nvalid], np.arange(n_entries), side="right") - 1
     perm2 = np.full(tg_pad, -1, np.int64)
     perm2[np.flatnonzero(has_task)] = last[has_task]
     net2 = plan_to_device(build_permutation_plan(_complete_permutation(perm2, tg_pad), validate=False))
-    return (net1, net2, jnp.asarray(seg_start), jnp.asarray(has_task))
+    return (net1, net2, jnp.asarray(segment_ids(seg_start)), jnp.asarray(has_task))
 
 
 class SpgemmBrickPlan:
-    """MXU path for block-dense regions of C(M) = A (.) B: where the mask and
+    """Matmul path for block-dense regions of C(M) = A (.) B: where the mask and
     both operands are dense in 128x128 bricks, the per-entry key intersections
     become batched brick matmuls (plus an indicator matmul for the match
     counts/structure).  The sparse remainder (A_rest x B plus A_dense x
@@ -1093,19 +1047,11 @@ def _finalize_eq_buckets(task_groups, n_entries_cap):
             task_entry = task_entry[order]
             ak, av, bk, bv = ak[order], av[order], bk[order], bv[order]
         T = len(task_entry)
-        # pad task count to the chunk size; chunk is a multiple of the
-        # Pallas eq-join tile (512 lanes) so both execute paths tile evenly,
-        # and never larger than the padded task count itself
+        # pad task count to the chunk size: a multiple of 512 tasks within
+        # the per-chunk compare budget, never larger than the padded task
+        # count itself
         chunk = max(512, _SPGEMM_EQ_BUDGET // (Wa * Wb) // 512 * 512)
         chunk = min(chunk, -(-T // 512) * 512)
-        # the Pallas eq-join's swept task tile must divide the padded count:
-        # round chunk to a tile multiple (tile is a power-of-2 multiple of
-        # 512, chunk any multiple of 512)
-        from ..ops.pallas_eqjoin import task_tile
-
-        tile = task_tile(Wa, Wb)
-        chunk = max(tile, chunk // tile * tile)
-        chunk = min(chunk, -(-T // tile) * tile)
         pad = (-T) % chunk
         if pad:
             ak = np.pad(ak, ((0, pad), (0, 0)), constant_values=-1)
@@ -1214,7 +1160,7 @@ def sparse_spgemm_analyze(a_sp, b_sp, m_rows, m_cols, *, bricks=False, brick_thr
     """Build the task plan for C(M) = A (.) B (host-side pattern analysis).
 
     ``bricks=True`` additionally detects 128x128 block-dense regions (of the
-    mask AND both operands) and plans them as batched MXU matmuls; only valid
+    mask AND both operands) and plans them as batched matmuls; only valid
     when the semiring executes as plus_pair / plus_times over f32 (the
     execute step asserts this).  The remainder — sparse-region entries, plus
     each dense entry's (A_rest x B) and (A_dense x B_rest) contributions —
@@ -1302,23 +1248,16 @@ def sparse_spgemm_execute(plan, sr, out_dtype, *, keep_on_device=False):
 
     keep_on_device=True returns (values (n_entries,), hit, flops) as device
     arrays — no host transfer (the result of one algebra step usually feeds
-    the next device op; over remote tunnels the download dwarfs compute).
+    the next device op).
     """
-    import functools
-
     import jax
     import jax.numpy as jnp
 
     mul = sr.binaryop
     addm = sr.monoid
     name = addm.parent.name
-    ident = addm.identity
     out_np = np.dtype(out_dtype.np_type)
-    a_np = np.dtype(mul.type_.np_type)
-    b_np = np.dtype(mul.type2.np_type)
     n_entries = plan.n_entries
-
-    import functools as _ft
 
     bucket_meta = [(b[0], b[7]) for b in plan.buckets]  # ((Wa, Wb), chunk) static
     brick = plan.brick
@@ -1336,11 +1275,10 @@ def sparse_spgemm_execute(plan, sr, out_dtype, *, keep_on_device=False):
 
         @jax.jit
         def exec_all(bucket_arrays, brick_arrays, rnet):
-            from ..ops.pallas_scan import _ident as _scan_ident
-            from ..ops.pallas_scan import segmented_scan
             from ..ops.permute import apply_plan
+            from ..ops.segscan import _ident as _scan_ident
+            from ..ops.segscan import segmented_reduce
 
-            interp = jax.default_backend() != "tpu"
             acc = jnp.zeros((n_entries,), out_np)
             hit = jnp.zeros((n_entries,), bool)
             flops = jnp.zeros((), jnp.int32)
@@ -1354,11 +1292,11 @@ def sparse_spgemm_execute(plan, sr, out_dtype, *, keep_on_device=False):
                     idss.append(ids)
                     flops = flops + jnp.sum(nm[: ids.shape[0]])
                 if vs and rnet is not None and scan_op is not None and out_np == np.float32:
-                    # scatter-free combine: static networks + segmented scan
-                    net1, net2, seg_start, has_task = rnet
+                    # combine: static networks + a sorted segmented reduce
+                    net1, net2, seg, has_task = rnet
                     stream_v = jnp.concatenate(vs).astype(jnp.float32)
                     stream_nm = jnp.concatenate(nms).astype(jnp.int32)
-                    tg_pad = seg_start.shape[0]
+                    tg_pad = seg.shape[0]
                     pad = tg_pad - stream_v.shape[0]
                     if pad:
                         stream_v = jnp.concatenate([stream_v, jnp.zeros((pad,), jnp.float32)])
@@ -1367,8 +1305,8 @@ def sparse_spgemm_execute(plan, sr, out_dtype, *, keep_on_device=False):
                     snm = apply_plan(stream_nm, net1)
                     ident = _scan_ident(scan_op, np.float32)
                     sv = jnp.where(snm > 0, sv, ident)
-                    scanned_v = segmented_scan(sv, seg_start, scan_op, interpret=interp)
-                    scanned_nm = segmented_scan(snm, seg_start, "add", interpret=interp)
+                    scanned_v = segmented_reduce(sv, seg, scan_op, tg_pad)
+                    scanned_nm = segmented_reduce(snm, seg, "add", tg_pad)
                     out_v = apply_plan(scanned_v, net2)[:n_entries]
                     out_nm = apply_plan(scanned_nm, net2)[:n_entries]
                     hit = has_task & (out_nm > 0)
@@ -1399,7 +1337,9 @@ def sparse_spgemm_execute(plan, sr, out_dtype, *, keep_on_device=False):
                     accv, accc = carry
                     a = a_bricks[a_idx[:, k]]
                     b = b_bricks[b_idx[:, k]]
-                    # indicator products are 0/1 — exact at any precision
+                    # indicator products: 0/1 inputs are exact in TF32 and
+                    # each cell sums at most 128 ones in f32, so the default
+                    # precision is exact here
                     cnt = jnp.matmul(
                         (a != 0).astype(jnp.float32),
                         (b != 0).astype(jnp.float32),
@@ -1409,8 +1349,8 @@ def sparse_spgemm_execute(plan, sr, out_dtype, *, keep_on_device=False):
                     if mul_pair:
                         accv = accv + cnt
                     else:
-                        # full f32 products: default MXU precision would
-                        # silently round the inputs to bf16 (ADVICE r1 #3)
+                        # full f32 products: the default precision may run
+                        # in TF32 on the GPU and round the inputs
                         accv = accv + jnp.matmul(
                             a, b, precision=jax.lax.Precision.HIGHEST,
                             preferred_element_type=jnp.float32,
@@ -1433,54 +1373,7 @@ def sparse_spgemm_execute(plan, sr, out_dtype, *, keep_on_device=False):
         return exec_all
 
     def bucket_body(akT, avT, bkT, bvT, entry_ids, chunk):
-        from ..ops import pallas_eqjoin as _ej
-
-        mul_name = mul.parent.name
-        interp = jax.default_backend() != "tpu"
-        if (
-            _ej.supported(name, mul_name)
-            and akT.dtype == jnp.int32
-            and bkT.dtype == jnp.int32
-            and (out_np == np.float32 or mul_name == "pair")
-            # interpret-mode Pallas is orders slower than the XLA fallback:
-            # off-TPU only tiny buckets take the kernel (coverage, not speed)
-            and (not interp or akT.shape[1] <= 2048)
-        ):
-            avv = avT.astype(jnp.float32) if mul_name in ("times", "plus", "first", "second") else None
-            bvv = bvT.astype(jnp.float32) if mul_name in ("times", "plus", "second") else None
-            vals, nmatch = _ej.eqjoin(akT, avv, bkT, bvv, add=name, mul=mul_name, interpret=interp)
-            return vals.astype(out_np), nmatch  # untrimmed: callers slice
-        # generic-monoid fallback: task-major layout + lax.map over chunks
-        ak, av, bk, bv = akT.T, avT.T, bkT.T, bvT.T
-
-        def one(chunk_args):
-            akk, avv, bkk, bvv = chunk_args
-            eq = akk[:, :, None] == bkk[:, None, :]
-            prod = mul.fn(
-                avv.astype(a_np)[:, :, None], bvv.astype(b_np)[:, None, :]
-            ).astype(out_np)
-            nmatch = jnp.sum(eq.astype(jnp.int32), axis=(1, 2))
-            if name == "plus":
-                val = jnp.sum(jnp.where(eq, prod, jnp.zeros((), out_np)), axis=(1, 2))
-            elif name in {"min", "land"}:
-                val = jnp.min(jnp.where(eq, prod, _extreme(out_np, "max")), axis=(1, 2))
-            elif name in {"max", "lor", "any"}:
-                val = jnp.max(jnp.where(eq, prod, _extreme(out_np, "min")), axis=(1, 2))
-            elif name == "times":
-                val = jnp.prod(jnp.where(eq, prod, jnp.ones((), out_np)), axis=(1, 2))
-            else:
-                iv = jnp.asarray(ident, out_np)
-                eff = jnp.where(eq, prod, iv).reshape(prod.shape[0], -1)
-                fn = addm.fn
-                val = jax.lax.associative_scan(
-                    lambda x, y: fn(x, y).astype(out_np), eff, axis=1
-                )[:, -1]
-            return val, nmatch
-
-        nchunks = ak.shape[0] // chunk
-        resh = lambda x: x.reshape(nchunks, chunk, x.shape[1])  # noqa: E731
-        vals, nmatch = jax.lax.map(one, (resh(ak), resh(av), resh(bk), resh(bv)))
-        return vals.reshape(-1), nmatch.reshape(-1)  # untrimmed: callers slice
+        return _eq_bucket(akT, avT, bkT, bvT, chunk, mul, addm, out_np)
 
     if plan.buckets or brick is not None:
         key = (sr, out_dtype.name, jax.default_backend())
@@ -1509,15 +1402,61 @@ def sparse_spgemm_execute(plan, sr, out_dtype, *, keep_on_device=False):
     )
 
 
+def _eq_bucket(akT, avT, bkT, bvT, chunk, mul, addm, out_np):
+    """One width bucket of the masked-SpGEMM dot method: task t intersects
+    two sorted key lists (columns of ``akT``/``bkT``, shape (W, T)) and
+    returns out[t] = ADD over ak[k, t] == bk[l, t] of MUL(av[k, t], bv[l, t])
+    plus the match count.  Missing A keys are -1 and missing B keys -2, so
+    pad slots never match.  Tasks run in chunks of ``chunk`` through
+    ``lax.map``; XLA fuses each chunk's broadcast compare + select + reduce.
+    Returns untrimmed (values, nmatch) of the padded task count."""
+    import jax
+    import jax.numpy as jnp
+
+    name = addm.parent.name
+    a_np = np.dtype(mul.type_.np_type)
+    b_np = np.dtype(mul.type2.np_type)
+    ak, av, bk, bv = akT.T, avT.T, bkT.T, bvT.T
+
+    def one(chunk_args):
+        akk, avv, bkk, bvv = chunk_args
+        eq = akk[:, :, None] == bkk[:, None, :]
+        prod = mul.fn(
+            avv.astype(a_np)[:, :, None], bvv.astype(b_np)[:, None, :]
+        ).astype(out_np)
+        nmatch = jnp.sum(eq.astype(jnp.int32), axis=(1, 2))
+        if name == "plus":
+            val = jnp.sum(jnp.where(eq, prod, jnp.zeros((), out_np)), axis=(1, 2))
+        elif name in {"min", "land"}:
+            val = jnp.min(jnp.where(eq, prod, _extreme(out_np, "max")), axis=(1, 2))
+        elif name in {"max", "lor", "any"}:
+            val = jnp.max(jnp.where(eq, prod, _extreme(out_np, "min")), axis=(1, 2))
+        elif name == "times":
+            val = jnp.prod(jnp.where(eq, prod, jnp.ones((), out_np)), axis=(1, 2))
+        else:
+            iv = jnp.asarray(addm.identity, out_np)
+            eff = jnp.where(eq, prod, iv).reshape(prod.shape[0], -1)
+            fn = addm.fn
+            val = jax.lax.associative_scan(
+                lambda x, y: fn(x, y).astype(out_np), eff, axis=1
+            )[:, -1]
+        return val, nmatch
+
+    nchunks = ak.shape[0] // chunk
+    resh = lambda x: x.reshape(nchunks, chunk, x.shape[1])  # noqa: E731
+    vals, nmatch = jax.lax.map(one, (resh(ak), resh(av), resh(bk), resh(bv)))
+    return vals.reshape(-1), nmatch.reshape(-1)
+
+
 def sparse_mxm_masked(a_sp, b_sp, m_rows, m_cols, sr, out_dtype):
     """C(M) = A ⊕.⊗ B over sparse operands, output restricted to M's pattern.
 
-    TPU-native dot method (the analogue of SuiteSparse's masked dot,
+    The dot method (the analogue of SuiteSparse's masked dot,
     axb_method=dot — reference: core/ss/descriptor.py:76-82): for each
     masked (i, j), intersect A's row-i list with B's column-j list.  Entries
     bucket by power-of-2 list width (hub lists split into chunk-pair tasks,
     monoid-accumulated), and each width bucket runs as ONE device dispatch
-    evaluating the full W×W pairwise key-equality on the VPU — no gathers in
+    evaluating the full W×W pairwise key-equality as one fused compare+reduce — no gathers in
     the compute, any semiring.  Returns (rows, cols, values, flops); flops
     counts the multiply-adds actually performed (2 × intersections found).
     """

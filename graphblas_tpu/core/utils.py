@@ -176,34 +176,22 @@ def udt_fill_dense(values_dict, struct, np_type, fill_value):
 
 
 def device_asarray(x, np_type=None):
-    """``jnp.asarray`` that commits complex arrays to the host CPU device:
-    XLA:TPU has no complex support (kernels return UNIMPLEMENTED), so
-    FC32/FC64 storage lives CPU-side and the engine keeps complex compute
-    there (see ops/densemasked._jit)."""
+    """``jnp.asarray`` at the executed width: under a gb.compile/loop trace
+    (or for arrays already on the device) 64-bit dtypes narrow to 32-bit
+    when x64 is off — the 64-bit contract (docs/types.md)."""
     import jax
     import jax.numpy as jnp
 
-    _is_dev = isinstance(x, jax.core.Tracer) or (
-        isinstance(x, jax.Array) and not np.issubdtype(x.dtype, np.complexfloating)
-    )
-    if _is_dev:
-        # inside a gb.compile/loop trace (or already on device): cast at the
-        # EXECUTED width — the 64-bit contract (docs/types.md) computes
-        # 64-bit dtypes at 32-bit width when x64 is off, and astype(64-bit)
-        # would warn + truncate to the same thing anyway
+    if isinstance(x, (jax.core.Tracer, jax.Array)):
+        # astype(64-bit) with x64 off would warn + truncate to the same thing
         if np_type is None:
             return x
         np_type = np.dtype(np_type)
         if not jax.config.jax_enable_x64 and np_type.itemsize == 8 and np_type.kind in "fiu":
             np_type = np.dtype(np_type.kind + "4")
+        if np.issubdtype(x.dtype, np.complexfloating) and np_type.kind != "c":
+            x = x.real  # numpy's complex -> real cast keeps the real part
         return x.astype(np_type)
     if np_type is not None:
         x = np.asarray(x, np_type)
-    dt = getattr(x, "dtype", None)
-    if (
-        dt is not None
-        and np.issubdtype(dt, np.complexfloating)
-        and jax.default_backend() != "cpu"
-    ):
-        return jax.device_put(np.asarray(x), jax.devices("cpu")[0])
     return jnp.asarray(x)

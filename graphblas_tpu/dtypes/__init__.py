@@ -34,7 +34,7 @@ if _core.BF16 is not None:
 _core._MODULE = _sys.modules[__name__]
 
 # tx extension namespace (reference: graphblas/dtypes/ss.py registers dtypes
-# from raw C typedefs; here TPU-extension dtypes such as BF16 live here)
+# from raw C typedefs; here extension dtypes such as BF16 live here)
 import types as _types
 
 tx = _types.SimpleNamespace(BF16=_core.BF16, register_new=register_new)

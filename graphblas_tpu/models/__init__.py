@@ -5,7 +5,7 @@ These are the reference's notebook algorithms (SURVEY.md §6 / BASELINE.md):
 SSSP, PageRank, level & parent BFS, FastSV connected components, triangle
 counting.  The interactive DSL dispatches one engine call per statement; these
 models instead fuse the whole iteration loop into one ``lax.while_loop`` under
-``jit`` — the TPU-native answer to "create objects outside the loop and reuse
+``jit`` — the compiled answer to "create objects outside the loop and reuse
 them" (reference README.md:92-116).
 """
 

@@ -84,5 +84,5 @@ def _levels_to_vector(levels):
     from ..core import dtypes as _dt
     from ..core.vector import Vector
 
-    it = _dt.default_int()  # INT64 on 64-bit platforms, INT32 on TPU (docs/types.md)
+    it = _dt.default_int()  # INT64 under the 64-bit policy, else INT32 (docs/types.md)
     return Vector._from_arrays(levels.astype(it.np_type), levels >= 0, it)

@@ -1,12 +1,12 @@
-"""Betweenness centrality — batch Brandes as MXU matmul sweeps.
+"""Betweenness centrality — batch Brandes as dense matmul sweeps.
 
 Reference recipe: the LAGraph-style batch formulation the reference exposes
 through its algorithm notebooks (SURVEY.md §6; cf. reference
 notebooks/Louvain.ipynb companion workloads): a forward sweep accumulates
 shortest-path counts level by level, a backward sweep accumulates
 dependencies, and every step is an ``(ns, n) @ (n, n)`` product — the
-TPU-native lowering runs both sweeps as ``lax.scan`` over dense f32 matmuls
-on the MXU instead of masked SpGEMMs.
+The lowering here runs both sweeps as ``lax.scan`` over dense f32 matmuls
+instead of masked SpGEMMs.
 """
 
 import functools

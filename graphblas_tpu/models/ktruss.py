@@ -1,10 +1,10 @@
-"""k-truss — iterated masked support counting on the MXU.
+"""k-truss — iterated masked support counting as dense matmuls.
 
 Reference recipe: the LAGraph-style k-truss the reference's algorithm suite
 models (SURVEY.md §6): support(e) = triangles through e = ``(A @ A) .* A``;
-drop edges with support < k-2; repeat to fixpoint.  The TPU-native lowering
+drop edges with support < k-2; repeat to fixpoint.  The lowering here
 keeps the symmetric adjacency dense int32 and runs the whole fixpoint as one
-``lax.while_loop`` of MXU matmuls.
+``lax.while_loop`` of matmuls.
 """
 
 import functools

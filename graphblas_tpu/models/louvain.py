@@ -1,9 +1,9 @@
 """Louvain community detection (synchronous modularity-gain label moving).
 
 Reference workload: notebooks/Louvain.ipynb (argmax indexunary + modularity
-reduce recipes).  The TPU-native lowering keeps communities as a one-hot
+reduce recipes).  The lowering here keeps communities as a one-hot
 assignment matrix so the per-iteration "gain of moving node i to community c"
-is one dense matmul on the MXU:
+is one dense matmul:
 
     gain[i, c] = (A @ C)[i, c] - k_i * (k @ C)[c] / 2m
 

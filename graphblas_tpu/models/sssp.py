@@ -48,7 +48,7 @@ def sssp(graph, source, *, as_vector=False):
         from ..core import dtypes as _dt
         from ..core.vector import Vector
 
-        ft = _dt.default_float()  # FP64 on 64-bit platforms, FP32 on TPU (docs/types.md)
+        ft = _dt.default_float()  # FP64 under the 64-bit policy, else FP32 (docs/types.md)
         present = dist < _BIG
         return Vector._from_arrays(
             jnp.where(present, dist, 0).astype(ft.np_type), present, ft

@@ -1,9 +1,9 @@
-"""Triangle counting — masked plus_pair SpGEMM on L·U, on the MXU.
+"""Triangle counting — masked plus_pair SpGEMM on L·U, as block matmuls.
 
 Reference recipe: notebooks/Louvain.ipynb triangle-count step
-(``C(L.S) << L.mxm(U, plus_pair); C.reduce_scalar()``).  The TPU-native
+(``C(L.S) << L.mxm(U, plus_pair); C.reduce_scalar()``).  The dense
 lowering is a blocked boolean matmul: tc = sum over (i,j) in L of (L @ L^T),
-computed block-by-block in int32 on the MXU so only O(n * block) memory is
+computed block-by-block in int32 matmuls so only O(n * block) memory is
 live at once.
 """
 

@@ -1,7 +1,7 @@
 // Clos-network router: 128-edge-coloring of regular bipartite multigraphs.
 //
 // This is the native runtime component of the permutation engine
-// (graphblas_tpu/ops/permute.py).  The TPU moves data fast only in regular
+// (graphblas_tpu/ops/permute.py).  The network moves data only in regular
 // patterns (per-row 128-lane shuffles, tile transposes); an arbitrary
 // permutation is realized as a Clos/Benes network whose middle-stage routing
 // is a proper edge coloring of a k-regular bipartite multigraph — computed

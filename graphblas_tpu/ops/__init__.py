@@ -8,8 +8,9 @@ device arrays.
   pairs, every op family as jit-compiled jnp code.  This is the differential
   oracle and the fallback path (analogue of the reference's
   "suitesparse-vanilla" backend).
-- ``lowering``: semiring -> strategy registry choosing MXU matmul forms,
-  Pallas kernels, or the generic path.
-- ``pallas_mxm`` / ``pallas_spmv``: hand-written TPU kernels for hot
-  semirings.
+- ``tropical``: the Pallas/Triton kernel for tropical-semiring mxm on the
+  GPU.
+- ``permute`` / ``fastspmv`` / ``segscan``: the permutation-network SpMV
+  (``mxv_strategy="plan"``).
+- ``edgewise``: segment-reduce SpMV over padded COO edges.
 """

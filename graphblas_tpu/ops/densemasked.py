@@ -32,29 +32,9 @@ import numpy as np
 _MXM_CHUNK = 128  # k-chunk for the generic semiring matmul (bounds memory to m*n*chunk)
 
 
-@functools.lru_cache(maxsize=1)
-def _cpu_device():
-    return jax.devices("cpu")[0]
-
-
-def _has_complex(tree):
-    for leaf in jax.tree_util.tree_leaves(tree):
-        dt = getattr(leaf, "dtype", None)
-        if dt is not None and jnp.issubdtype(dt, jnp.complexfloating):
-            return True
-    return False
-
-
 def _jit(fn=None, *, static=()):
-    """jax.jit wrapper for engine entry points.
-
-    Complex dtypes are routed to the host CPU backend: TPU hardware has no
-    complex support (XLA:TPU returns UNIMPLEMENTED), so FC32/FC64 collections
-    execute on the co-resident CPU device — same semantics, different device
-    (the reference relies on SuiteSparse CPU kernels for complex throughout).
-    Real-valued results migrate back to the default device; complex results
-    stay CPU-committed so follow-up complex ops don't bounce.
-    """
+    """jax.jit wrapper for engine entry points; inside a gb.compile/loop
+    trace it inlines the raw function instead."""
     if fn is None:
         return functools.partial(_jit, static=static)
     jfn = jax.jit(fn, static_argnames=static)
@@ -68,16 +48,7 @@ def _jit(fn=None, *, static=()):
             # concrete (structure) inputs stay concrete — an inner jit would
             # turn every output into a tracer and defeat structure hoisting
             return fn(*args, **kwargs)
-        if jax.default_backend() == "cpu" or not _has_complex((args, kwargs)):
-            return jfn(*args, **kwargs)
-        cpu = _cpu_device()
-        move = lambda x: jax.device_put(x, cpu) if isinstance(x, jax.Array) else x  # noqa: E731
-        out = jfn(*jax.tree_util.tree_map(move, args), **jax.tree_util.tree_map(move, kwargs))
-        if _has_complex(out):
-            return out
-        default = jax.devices()[0]
-        back = lambda x: jax.device_put(x, default) if isinstance(x, jax.Array) else x  # noqa: E731
-        return jax.tree_util.tree_map(back, out)
+        return jfn(*args, **kwargs)
 
     return wrapper
 
@@ -534,7 +505,7 @@ def _positional_ewise(shape, struct, op):
 
 
 def _mxm_fast_path(av, as_, bv, bs, semiring, out_np_dtype):
-    """MXU-friendly lowerings for semirings that map onto plus-times algebra.
+    """Matmul lowerings for semirings that map onto plus-times algebra.
 
     plus_times       -> A @ B on values (absent = 0 annihilates)
     plus_pair/oneb   -> struct @ struct (overlap counts)
@@ -553,10 +524,9 @@ def _mxm_fast_path(av, as_, bv, bs, semiring, out_np_dtype):
         acc_dtype = np.int32
 
     def mm(x, y):
-        # HIGHEST: the TPU MXU's default precision computes f32 products via
-        # bf16 passes — silent ~16-bit mantissa loss vs the reference's exact
-        # CPU semirings.  bf16 multiplies are an explicit opt-in (mxm_strategy),
-        # never an implicit downgrade.
+        # HIGHEST: the GPU's default f32 matmul precision may run in TF32 —
+        # silent mantissa loss vs the reference's exact CPU semirings.
+        # Reduced-precision multiplies are never an implicit downgrade.
         prec = (
             jax.lax.Precision.HIGHEST
             if jnp.issubdtype(jnp.dtype(acc_dtype), jnp.floating)
@@ -615,17 +585,15 @@ def _mul_values(avk, bvk, ik, kk, jk, mul):
 
 
 def _pallas_mxm_allowed(semiring, out_np, m, n, strategy):
-    """Static decision: lower tropical-family semirings to the Pallas VPU
-    kernel on TPU (ops/pallas_mxm)."""
+    """Static decision: lower tropical-family semirings to the Triton
+    kernel (ops/tropical) on the GPU; Triton compiles for no other device."""
     if strategy not in {"auto", "pallas"}:
         return False
     if m * n < 128 * 128 and strategy != "pallas":
         return False
-    import jax
-
-    if jax.default_backend() != "tpu":
+    if jax.default_backend() != "gpu":
         return False
-    from .pallas_mxm import is_tropical
+    from .tropical import is_tropical
 
     add = semiring.monoid.parent.name
     mul = semiring.binaryop.parent.name
@@ -717,12 +685,12 @@ def mxm(av, as_, bv, bs, semiring, out_dtype, strategy="auto"):
 def _mxm_paths(av, as_, bv, bs, semiring, out_dtype, strategy="auto"):
     """GrB_mxm over any semiring (reference: core/matrix.py:2264-2331).
 
-    Strategy 1: MXU matmul forms for plus_times-family semirings.
-    Strategy 2: Pallas blocked VPU kernel for tropical-family semirings
-    (min_plus/max_plus/min_max/max_min) on TPU.
+    Strategy 1: matmul forms for plus_times-family semirings.
+    Strategy 2: the Pallas/Triton kernel for tropical-family semirings
+    (min_plus/max_plus/min_max/max_min) on the GPU (ops/tropical).
     Strategy 3: generic chunked semiring contraction — scan over k-chunks,
     each chunk does an (m, ck, n) broadcast multiply + present-aware monoid
-    reduce on the VPU, chunks combine with the monoid.
+    reduce, chunks combine with the monoid.
     Strategy 4: SoA per-field contraction for UDT operands (_mxm_soa).
 
     ``strategy`` is the per-call descriptor override (tx.config
@@ -742,7 +710,7 @@ def _mxm_paths(av, as_, bv, bs, semiring, out_dtype, strategy="auto"):
         cv, cs = fast
         return canonical(cv.astype(out_np), cs)
     if semiring.binaryop.positional is None and _pallas_mxm_allowed(semiring, out_np, m, n, strategy):
-        from .pallas_mxm import tropical_mxm
+        from .tropical import tropical_mxm
 
         cv, cs = tropical_mxm(
             av, as_, bv, bs, semiring.monoid.parent.name, semiring.binaryop.parent.name, out_np
@@ -915,8 +883,7 @@ def scatter_region_vector(cv, cs, idx, av, as_):
 def scatter_region_vector_contig(cv, cs, av, as_, start=0):
     """Contiguous-region variant of ``scatter_region_vector``: slice assigns
     (incl. the ubiquitous ``v(mask)[:] = x``) lower to dynamic_update_slice
-    instead of an n-sized XLA scatter (~12 ms/M elements on TPU — measured
-    to dominate compiled DSL loop bodies)."""
+    instead of an n-sized XLA scatter."""
     import jax.lax as lax
 
     zv = tmap(
@@ -1146,8 +1113,8 @@ def prefix_scan(values, struct, monoid, axis):
     """Prefix scan over present entries along an axis.
 
     The reference implements this as semiring mxm against synthesized
-    selector matrices (core/ss/prefix_scan.py:12-183 — Blelloch sweeps); on
-    TPU an ``associative_scan`` of the present-aware monoid is the natural
+    selector matrices (core/ss/prefix_scan.py:12-183 — Blelloch sweeps);
+    here an ``associative_scan`` of the present-aware monoid is the natural
     lowering.
     """
     fn = monoid.fn if monoid.fn is not None else (lambda a, b: a)

@@ -3,7 +3,7 @@
 The dense-masked engine is O(n^2) per mxv; for GAP-scale graphs the hot loops
 in ``graphblas_tpu.models`` use this O(E) path instead: gather x at edge
 sources, apply the semiring multiply per edge, segment-reduce to edge
-destinations with the semiring add.  This is the TPU-native analogue of
+destinations with the semiring add.  This is the segment-reduce analogue of
 SuiteSparse's sparse mxv kernels (reference: the ``axb_method`` saxpy/dot
 variants selected in core/ss/descriptor.py:76-82).
 

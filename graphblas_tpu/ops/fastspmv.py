@@ -1,15 +1,15 @@
 """Permutation-network SpMV: O(E) semiring mxv without XLA gather/scatter.
 
-The pipeline (all static-shape, all fast TPU primitives):
+The pipeline (all static-shape):
 
     expand:   x (n,) -> x[src] in src-sorted edge order
-              = place x at CSR boundaries (scatter of n elements, ~90 M/s is
-              fine at n-size) + segmented forward-fill (streaming Pallas scan)
+              = place x at CSR boundaries (a static place network) +
+              segmented forward-fill (ops/segscan.py)
     multiply: per-edge semiring multiply with the edge weights
     permute:  src-sorted order -> dst-sorted order via a PermutePlan
-              (lane-shuffle/transpose network, ~5 G elem/s per stage)
-    reduce:   segmented reduce by dst = inclusive scan + boundary pick
-              (plus: cumsum + diff; min/max: segmented scan + ends)
+              (lane-shuffle/transpose network, ops/permute.py)
+    reduce:   sorted segment reduce by dst over static segment ids
+              (ops/segscan.py); the collect network reads the totals
 
 Plans and layouts are built once per graph (the pattern analysis step —
 the analogue of SuiteSparse choosing Gustavson/hash/dot per matrix) and
@@ -47,7 +47,7 @@ class SpmvPlan:
         place_plan=None,
         collect_plan=None,
         seg_start_src=None,
-        seg_start_dst=None,
+        seg_dst=None,
         dst_nonempty=None,
         loop_plan=None,
         start_has_state=None,
@@ -71,15 +71,15 @@ class SpmvPlan:
         # static src ids (f32) in dst order: the positional-mul channel
         # (secondi/firstj contributions are the src vertex id — no expand needed)
         self.src_dst_order = src_dst_order
-        # -- v2 (gather/scatter-free endpoints; profiled: the n-sized XLA
-        # scatter (expand) and gather (ends pick) cost ~7 of 8 ms/SpMV at
-        # scale 19, while an 11-stage permutation pass costs 0.42 ms) --------
+        # -- v2 (gather/scatter-free endpoints) ------------------------------
         # place: network putting x[i] at src-segment-start slots
         self.place_plan = place_plan
         # collect: network bringing each dst segment's last slot to position d
         self.collect_plan = collect_plan
         self.seg_start_src = seg_start_src  # device bool (e_pad,)
-        self.seg_start_dst = seg_start_dst  # device bool (e_pad,)
+        # dst segment id (= dst vertex) of each dst-order slot: the sorted
+        # segment ids of the reduce (ops/segscan.segmented_reduce)
+        self.seg_dst = seg_dst  # device int32 (e_pad,)
         self.dst_nonempty = dst_nonempty  # device bool (n,): >=1 VALID in-edge
         # -- v3 (iterative "loop layout"): algorithm state lives in the edge
         # space at dst-segment-LAST slots; ONE composed network (loop_plan)
@@ -97,11 +97,10 @@ class SpmvPlan:
         # dangling vertices WITHOUT a state slot (isolated): their rank is the
         # per-iteration scalar c; static count folds them into dangling mass
         self.k_iso_dangling = k_iso_dangling  # static int
-        # static-fill gather tables for seg_start_src (pallas_scan.build_fill_tables):
-        # collapse the 7 lane log-scan passes of the expand fill to ONE
-        # within-row dynamic_gather (measured 6x on v5e)
-        self.fill_j = fill_j  # device int8 (e_pad//128, 128) | None
-        self.fill_hp = fill_hp  # device int8 (e_pad//128, 128) | None
+        # static-fill gather index for seg_start_src (segscan.build_fill_tables):
+        # the expand fill is one take from the latest flagged slot
+        self.fill_j = fill_j  # device int32 (e_pad,)
+        self.fill_hp = fill_hp  # device bool (e_pad,)
         # loop_plan routes no-state start slots from identity-valued donor
         # slots (static: x_start = routed, no select) — see build_spmv_plan
         self.loop_donors = loop_donors
@@ -126,7 +125,7 @@ def _register_spmv_pytree():
             p.place_plan,
             p.collect_plan,
             p.seg_start_src,
-            p.seg_start_dst,
+            p.seg_dst,
             p.dst_nonempty,
             p.loop_plan,
             p.start_has_state,
@@ -197,13 +196,12 @@ def _network_builder():
     return _BUILD_POOL.submit
 
 
-def build_spmv_plan(src, dst, w=None, *, n=None, endpoints=True, pad_to=0, loop_net=True, total=False):
+def build_spmv_plan(src, dst, w=None, *, n=None, pad_to=0, loop_net=True, total=False):
     """Analyze a COO graph into an SpmvPlan (host-side, once per graph).
 
-    ``endpoints=True`` additionally builds the place/collect networks that
-    make the runtime SpMV completely gather/scatter-free (both the expand
-    scatter and the segment-ends gather are n-sized XLA ops that dominate
-    the pipeline otherwise).  ``pad_to`` forces a minimum network size —
+    Besides the src->dst permutation, the plan carries the place/collect
+    networks that move n-vectors into and out of the edge space.
+    ``pad_to`` forces a minimum network size —
     used by the multi-chip build to give every device partition identical
     static shapes (parallel/fastspmv.py stacks the per-device plans).
 
@@ -264,10 +262,7 @@ def build_spmv_plan(src, dst, w=None, *, n=None, endpoints=True, pad_to=0, loop_
     middle_perm = rank_src[order_dst]
     # the 2-4 network builds are independent; on multi-core hosts they run
     # in parallel threads (the native router releases the GIL, no shared
-    # state — router.cpp is re-entrant).  On this repo's 1-core dev host the
-    # builds serialize; the Euler-walk analysis there is DRAM-latency-bound
-    # at ~42-99 M random ops/s (measured), which no processor choice fixes —
-    # TPU XLA gathers sustain the same ~65-90 M elem/s for pointer chasing.
+    # state — router.cpp is re-entrant).
     _nb = _network_builder()
     perm_job = _nb(build_permutation_plan, middle_perm, validate=False)
 
@@ -277,95 +272,87 @@ def build_spmv_plan(src, dst, w=None, *, n=None, endpoints=True, pad_to=0, loop_
     counts_dst = np.bincount(dst_p, minlength=n)
     indptr_dst = np.concatenate([[0], np.cumsum(counts_dst)]).astype(np.int32)
 
-    place_plan = collect_plan = None
-    seg_start_src = seg_start_dst = dst_nonempty = None
-    loop_plan = start_has_state = is_last_dst = outdeg_start = last_dangling = None
-    k_iso_dangling = 0
-    if endpoints:
-        starts_src = indptr_src[:-1].astype(np.int64)
-        ne_src = counts_src > 0
-        # place: out[start slot of src i] = x[i]; filler elsewhere (fill-scan
-        # only reads flagged slots, so filler values never surface)
-        perm0 = np.full(e_pad, -1, np.int64)
-        perm0[starts_src[ne_src]] = np.flatnonzero(ne_src)
-        place_job = _nb(
-            lambda p0: build_permutation_plan(_complete_permutation(p0, e_pad), validate=False),
-            perm0,
+    loop_plan = None
+    starts_src = indptr_src[:-1].astype(np.int64)
+    ne_src = counts_src > 0
+    # place: out[start slot of src i] = x[i]; filler elsewhere (fill-scan
+    # only reads flagged slots, so filler values never surface)
+    perm0 = np.full(e_pad, -1, np.int64)
+    perm0[starts_src[ne_src]] = np.flatnonzero(ne_src)
+    place_job = _nb(
+        lambda p0: build_permutation_plan(_complete_permutation(p0, e_pad), validate=False),
+        perm0,
+    )
+    ssrc = np.zeros(e_pad, bool)
+    ssrc[starts_src[ne_src]] = True
+    seg_start_src = ssrc
+    # collect: out[d] = scanned[last slot of dst segment d]; empty dst
+    # positions read filler slots and are masked by dst_nonempty
+    ne_dst = counts_dst > 0
+    perm2 = np.full(e_pad, -1, np.int64)
+    perm2[np.flatnonzero(ne_dst)] = indptr_dst[1:].astype(np.int64)[ne_dst] - 1
+    collect_job = _nb(
+        lambda p2: build_permutation_plan(_complete_permutation(p2, e_pad), validate=False),
+        perm2,
+    )
+    # dst segment id of every dst-order slot: the dst vertex (sorted)
+    seg_dst = dst_p[order_dst]
+    # valid-edge in-degree (pad edges at n-1 must not count)
+    dst_nonempty = np.bincount(dst, minlength=n) > 0
+    # -- loop layout (v3): route state (dst-seg-last slots) directly to
+    # the next iteration's expand inputs (src-seg-start slots) in ONE
+    # network — the composition of collect and place without the n-space
+    # round trip between them
+    last_dst = indptr_dst[1:].astype(np.int64) - 1
+    has_state = counts_dst > 0  # incl. pad edges: slot existence only
+    both = ne_src & has_state
+    shs = np.zeros(e_pad, bool)
+    shs[starts_src[both]] = True
+    start_has_state = shs
+    il = np.zeros(e_pad, bool)
+    il[last_dst[has_state]] = True
+    is_last_dst = il
+    if loop_net:
+        # only the model loop-layout algorithms use the loop network;
+        # DSL dispatch plans skip it (saves ~1/4 of the analysis)
+        perm3 = np.full(e_pad, -1, np.int64)
+        perm3[starts_src[both]] = last_dst[both]
+        # DONOR ROUTING: start slots whose vertex has NO state slot read
+        # a non-last slot.  The state kernels keep non-last slots at the
+        # mode identity (BFS frontier 0; SSSP STATE_BIG), so the routed
+        # array IS x_start — the start_has_state select (a full e_pad
+        # HBM pass per loop iteration) disappears.  Always feasible:
+        # #non-last slots = e_pad - #state slots >= #no-state starts,
+        # because #states + #no-state-starts <= #non-isolated <= n <= e_pad.
+        nostate = ne_src & ~has_state
+        k_ns = int(nostate.sum())
+        if k_ns:
+            donors = np.flatnonzero(~il)[:k_ns]
+            assert len(donors) == k_ns, "donor pool exhausted (impossible by counting)"
+            perm3[starts_src[nostate]] = donors
+        loop_job = _nb(
+            lambda p3: build_permutation_plan(_complete_permutation(p3, e_pad), validate=False),
+            perm3,
         )
-        ssrc = np.zeros(e_pad, bool)
-        ssrc[starts_src[ne_src]] = True
-        seg_start_src = ssrc
-        # collect: out[d] = scanned[last slot of dst segment d]; empty dst
-        # positions read filler slots and are masked by dst_nonempty
-        ne_dst = counts_dst > 0
-        perm2 = np.full(e_pad, -1, np.int64)
-        perm2[np.flatnonzero(ne_dst)] = indptr_dst[1:].astype(np.int64)[ne_dst] - 1
-        collect_job = _nb(
-            lambda p2: build_permutation_plan(_complete_permutation(p2, e_pad), validate=False),
-            perm2,
-        )
-        sdst = np.zeros(e_pad, bool)
-        sdst[indptr_dst[:-1].astype(np.int64)[ne_dst]] = True
-        seg_start_dst = sdst
-        # valid-edge in-degree (pad edges at n-1 must not count)
-        dst_nonempty = np.bincount(dst, minlength=n) > 0
-        # -- loop layout (v3): route state (dst-seg-last slots) directly to
-        # the next iteration's expand inputs (src-seg-start slots) in ONE
-        # network — the composition of collect and place without the n-space
-        # round trip between them
-        last_dst = indptr_dst[1:].astype(np.int64) - 1
-        has_state = counts_dst > 0  # incl. pad edges: slot existence only
-        both = ne_src & has_state
-        shs = np.zeros(e_pad, bool)
-        shs[starts_src[both]] = True
-        start_has_state = shs
-        il = np.zeros(e_pad, bool)
-        il[last_dst[has_state]] = True
-        is_last_dst = il
-        if loop_net:
-            # only the model loop-layout algorithms use the loop network;
-            # DSL dispatch plans skip it (saves ~1/4 of the analysis)
-            perm3 = np.full(e_pad, -1, np.int64)
-            perm3[starts_src[both]] = last_dst[both]
-            # DONOR ROUTING: start slots whose vertex has NO state slot read
-            # a non-last slot.  The state kernels keep non-last slots at the
-            # mode identity (BFS frontier 0; SSSP STATE_BIG), so the routed
-            # array IS x_start — the start_has_state select (a full e_pad
-            # HBM pass per loop iteration) disappears.  Always feasible:
-            # #non-last slots = e_pad - #state slots >= #no-state starts,
-            # because #states + #no-state-starts <= #non-isolated <= n <= e_pad.
-            nostate = ne_src & ~has_state
-            k_ns = int(nostate.sum())
-            if k_ns:
-                donors = np.flatnonzero(~il)[:k_ns]
-                assert len(donors) == k_ns, "donor pool exhausted (impossible by counting)"
-                perm3[starts_src[nostate]] = donors
-            loop_job = _nb(
-                lambda p3: build_permutation_plan(_complete_permutation(p3, e_pad), validate=False),
-                perm3,
-            )
-        true_outdeg = np.bincount(src, minlength=n)  # valid edges only
-        od = np.ones(e_pad, np.float32)
-        od[starts_src[ne_src]] = np.maximum(true_outdeg[ne_src], 1).astype(np.float32)
-        outdeg_start = od
-        dangling = true_outdeg == 0
-        ld = np.zeros(e_pad, bool)
-        ld[last_dst[has_state & dangling]] = True
-        last_dangling = ld
-        k_iso_dangling = int(np.sum(dangling & ~has_state))
+    true_outdeg = np.bincount(src, minlength=n)  # valid edges only
+    od = np.ones(e_pad, np.float32)
+    od[starts_src[ne_src]] = np.maximum(true_outdeg[ne_src], 1).astype(np.float32)
+    outdeg_start = od
+    dangling = true_outdeg == 0
+    ld = np.zeros(e_pad, bool)
+    ld[last_dst[has_state & dangling]] = True
+    last_dangling = ld
+    k_iso_dangling = int(np.sum(dangling & ~has_state))
 
-    fill_j = fill_hp = None
-    if seg_start_src is not None:
-        from .pallas_scan import build_fill_tables
+    from .segscan import build_fill_tables
 
-        fill_j, fill_hp = build_fill_tables(seg_start_src)
+    fill_j, fill_hp = build_fill_tables(seg_start_src)
 
     perm_plan = perm_job.result()
-    if endpoints:
-        place_plan = place_job.result()
-        collect_plan = collect_job.result()
-        if loop_net:
-            loop_plan = loop_job.result()
+    place_plan = place_job.result()
+    collect_plan = collect_job.result()
+    if loop_net:
+        loop_plan = loop_job.result()
 
     plan = SpmvPlan(
         n,
@@ -379,18 +366,18 @@ def build_spmv_plan(src, dst, w=None, *, n=None, endpoints=True, pad_to=0, loop_
         jnp.asarray(src_p[order_dst].astype(np.int32)),
         place_plan,
         collect_plan,
-        jnp.asarray(seg_start_src) if seg_start_src is not None else None,
-        jnp.asarray(seg_start_dst) if seg_start_dst is not None else None,
-        jnp.asarray(dst_nonempty) if dst_nonempty is not None else None,
+        jnp.asarray(seg_start_src),
+        jnp.asarray(seg_dst),
+        jnp.asarray(dst_nonempty),
         loop_plan,
-        jnp.asarray(start_has_state) if start_has_state is not None else None,
-        jnp.asarray(is_last_dst) if is_last_dst is not None else None,
-        jnp.asarray(outdeg_start) if outdeg_start is not None else None,
-        jnp.asarray(last_dangling) if last_dangling is not None else None,
-        jnp.asarray(fill_j) if fill_j is not None else None,
-        jnp.asarray(fill_hp) if fill_hp is not None else None,
+        jnp.asarray(start_has_state),
+        jnp.asarray(is_last_dst),
+        jnp.asarray(outdeg_start),
+        jnp.asarray(last_dangling),
+        jnp.asarray(fill_j),
+        jnp.asarray(fill_hp),
         k_iso_dangling=k_iso_dangling,
-        loop_donors=bool(endpoints and loop_net),
+        loop_donors=bool(loop_net),
         total=bool(total),
     )
     plan._order_dst = order_dst_np  # host-only (not a pytree leaf)
@@ -416,16 +403,10 @@ def host_tables(plan):
     return h
 
 
-def _interpret_scan():
-    return jax.default_backend() != "tpu"
-
-
 def _expand_v2(x, plan):
     """x (n,) -> x[src] in src-sorted order with NO scatter: embed x in the
     edge space, route it to segment starts with the static place network,
     then segmented forward-fill."""
-    from .pallas_scan import segmented_scan
-
     pad = plan.e_pad - x.shape[0]
     x_emb = jnp.concatenate([x, jnp.zeros((pad,), x.dtype)]) if pad else x
     placed = apply_plan(x_emb, plan.place_plan)
@@ -433,56 +414,33 @@ def _expand_v2(x, plan):
 
 
 def _seg_fill(plan, placed):
-    """Segmented forward-fill across src segments: static gather tables when
-    the plan carries them (6x fewer VPU passes), generic scan otherwise."""
-    from .pallas_scan import segmented_fill_static, segmented_scan
+    """Segmented forward-fill across src segments: one static gather from
+    each slot's segment start."""
+    from .segscan import segmented_fill_static
 
-    if plan.fill_j is not None:
-        return segmented_fill_static(placed, plan.fill_j, plan.fill_hp, interpret=_interpret_scan())
-    return segmented_scan(placed, plan.seg_start_src, "fill", interpret=_interpret_scan())
+    return segmented_fill_static(placed, plan.fill_j, plan.fill_hp)
+
+
+def _reduce_dst(plan, xe_dst, w, valid, op, mul, wrap=None):
+    """Segmented reduce of dst-order contributions: every slot gets its dst
+    segment's total (ops/segscan)."""
+    from .segscan import segmented_reduce_contrib
+
+    return segmented_reduce_contrib(xe_dst, w, valid, plan.seg_dst, op, mul, plan.n, wrap=wrap)
+
+
+def _count_dst(plan, valid, dtype):
+    from .segscan import segmented_reduce
+
+    return segmented_reduce(valid.astype(dtype), plan.seg_dst, "add", plan.n)
 
 
 def _collect_v2(scanned, plan, ident):
     """Segment totals -> y (n,) with NO gather: the static collect network
-    brings each dst segment's last (inclusive-scan = total) slot to position
-    d; empty destinations are masked to the identity."""
+    brings each dst segment's last slot (its total) to position d; empty
+    destinations are masked to the identity."""
     collected = apply_plan(scanned, plan.collect_plan)
     return jnp.where(plan.dst_nonempty, collected[: plan.n], ident)
-
-
-def _expand_src_sorted(x, indptr_src, e_pad):
-    """x (n,) -> x[src] for src-sorted edges, with no big gather:
-    scatter x at segment starts (nonempty segments only; empties share a
-    start slot with the next nonempty segment and must not clobber it),
-    then segmented forward-fill (streaming Pallas scan)."""
-    from .pallas_scan import segmented_scan
-
-    starts = indptr_src[:-1]
-    nonempty = indptr_src[1:] > starts
-    idx = jnp.where(nonempty, starts, e_pad)  # out-of-bounds -> dropped
-    placed = jnp.zeros(e_pad, x.dtype).at[idx].set(x, mode="drop")
-    seg_start = jnp.zeros(e_pad, bool).at[idx].set(True, mode="drop")
-    return segmented_scan(placed, seg_start, "fill", interpret=_interpret_scan())
-
-
-def _segment_reduce_dst(contrib, indptr_dst, kind):
-    """Segmented reduce of dst-sorted contributions -> y (n,)."""
-    from .pallas_scan import segmented_scan
-
-    ends = indptr_dst[1:]
-    starts = indptr_dst[:-1]
-    # segmented inclusive scan (resets at segment starts), then pick at ends.
-    # Used for plus as well: a global cumsum+diff loses float precision to
-    # cancellation; the segmented scan only accumulates within a segment.
-    e_pad = contrib.shape[0]
-    seg_start = jnp.zeros(e_pad, bool).at[starts].set(True)
-    op = {"plus": "add", "min": "min", "max": "max"}[kind]
-    scanned = segmented_scan(contrib, seg_start, op, interpret=_interpret_scan())
-    ident = _ident_of(contrib.dtype, kind)
-    padded = jnp.concatenate([jnp.full((1,), ident, contrib.dtype), scanned])
-    out = padded[ends]  # value at last slot of each segment (ends are 1-past)
-    empty = starts == ends
-    return jnp.where(empty, ident, out)
 
 
 def _ident_of(dtype, kind):
@@ -524,10 +482,9 @@ def _unpack_network(data, prefix, e_pad):
         elif kind.startswith("Q"):
             stages.append(("RSEL", jnp.asarray(data[f"{prefix}stage{i}"]), int(kind[1:])))
         else:
-            # "R<m>": 3-dim = (m, s2, 128) src_top select table (r2 caches);
-            # 2-dim = r3 lane-shuffle table — invert it back to the select
-            # form, which is the measured-fast default (18.5x; see
-            # build_permutation_plan).  The shuffle form only runs under
+            # "R<m>": 3-dim = (m, s2, 128) src_top select table;
+            # 2-dim = lane-shuffle table — invert it back to the select
+            # form, the default.  The shuffle form only runs under
             # GRAPHBLAS_TPU_ROWSEL_SHUFFLE=1.
             from .permute import _rowsel_shuffle_enabled, _rowsel_table, _rowsel_unshuffle
 
@@ -559,12 +516,10 @@ def save_spmv_plan(plan, path):
     if plan.src_dst_order is not None:
         arrays["src_dst_order"] = np.asarray(plan.src_dst_order)
     _pack_network(arrays, plan.perm_plan, "")
-    if plan.place_plan is not None:
-        _pack_network(arrays, plan.place_plan, "p0_")
-        _pack_network(arrays, plan.collect_plan, "p2_")
-        arrays["seg_start_src"] = np.asarray(plan.seg_start_src)
-        arrays["seg_start_dst"] = np.asarray(plan.seg_start_dst)
-        arrays["dst_nonempty"] = np.asarray(plan.dst_nonempty)
+    _pack_network(arrays, plan.place_plan, "p0_")
+    _pack_network(arrays, plan.collect_plan, "p2_")
+    arrays["seg_start_src"] = np.asarray(plan.seg_start_src)
+    arrays["dst_nonempty"] = np.asarray(plan.dst_nonempty)
     if plan.loop_plan is not None:
         _pack_network(arrays, plan.loop_plan, "p3_")
         arrays["start_has_state"] = np.asarray(plan.start_has_state)
@@ -602,12 +557,12 @@ def load_spmv_plan(path, w=None):
     elif "w_dst_order" in data:
         w_dst = jnp.asarray(data["w_dst_order"])
     perm_plan = _unpack_network(data, "", e_pad)
-    fill_j = fill_hp = None
-    if "seg_start_src" in data:
-        # derived host-side at load (cheap); not part of the disk format
-        from .pallas_scan import build_fill_tables
+    # derived host-side at load (cheap); not part of the disk format
+    from .segscan import build_fill_tables
 
-        fill_j, fill_hp = build_fill_tables(data["seg_start_src"])
+    fill_j, fill_hp = build_fill_tables(data["seg_start_src"])
+    indptr_dst = np.asarray(data["indptr_dst"]).astype(np.int64)
+    seg_dst = np.repeat(np.arange(n, dtype=np.int32), np.diff(indptr_dst))
     return SpmvPlan(
         n,
         e_pad,
@@ -620,16 +575,16 @@ def load_spmv_plan(path, w=None):
         jnp.asarray(data["src_dst_order"].astype(np.int32)) if "src_dst_order" in data else None,
         _unpack_network(data, "p0_", e_pad),
         _unpack_network(data, "p2_", e_pad),
-        jnp.asarray(data["seg_start_src"]) if "seg_start_src" in data else None,
-        jnp.asarray(data["seg_start_dst"]) if "seg_start_dst" in data else None,
-        jnp.asarray(data["dst_nonempty"]) if "dst_nonempty" in data else None,
+        jnp.asarray(data["seg_start_src"]),
+        jnp.asarray(seg_dst),
+        jnp.asarray(data["dst_nonempty"]),
         _unpack_network(data, "p3_", e_pad),
         jnp.asarray(data["start_has_state"]) if "start_has_state" in data else None,
         jnp.asarray(data["is_last_dst"]) if "is_last_dst" in data else None,
         jnp.asarray(data["outdeg_start"]) if "outdeg_start" in data else None,
         jnp.asarray(data["last_dangling"]) if "last_dangling" in data else None,
-        jnp.asarray(fill_j) if fill_j is not None else None,
-        jnp.asarray(fill_hp) if fill_hp is not None else None,
+        jnp.asarray(fill_j),
+        jnp.asarray(fill_hp),
         k_iso_dangling=int(data["k_iso_dangling"][0]) if "k_iso_dangling" in data else 0,
         # plans cached before r5 lack donor routing: keep the select path
         loop_donors=bool(int(data["loop_donors"][0])) if "loop_donors" in data else False,
@@ -638,8 +593,8 @@ def load_spmv_plan(path, w=None):
 
 
 def _no_x64(fn):
-    """Trace with x64 off: the fast-path kernels are a strictly 32-bit domain
-    (Mosaic rejects i64), regardless of the global jax_enable_x64 setting."""
+    """Trace with x64 off: the plan engine is a strictly 32-bit domain
+    (f32/int32 channels), regardless of the global jax_enable_x64 setting."""
     import functools as _ft
 
     @_ft.wraps(fn)
@@ -684,24 +639,10 @@ def spmv_masked(plan: SpmvPlan, x, xs, add="plus", mul="times", x_full=False, wr
     supports "secondi" (positional: contribution = src vertex id, a static
     per-plan channel — the any_secondi parent-BFS semiring).
     """
-    from .pallas_scan import segmented_scan, segmented_scan_contrib
-
-    interp = _interpret_scan()
-    v2 = plan.place_plan is not None
     op = {"plus": "add", "min": "min", "max": "max", "any": "max"}[add]
-    if v2:
-        seg_start = plan.seg_start_dst
-    else:
-        starts = plan.indptr_dst[:-1]
-        ends = plan.indptr_dst[1:]
-        seg_start = jnp.zeros(plan.e_pad, bool).at[starts].set(True)
 
     def expand(v):
-        if v2:
-            return apply_plan(_expand_v2(v, plan), plan.perm_plan)
-        return apply_plan(
-            _expand_src_sorted(v, plan.indptr_src, plan.e_pad), plan.perm_plan
-        )
+        return apply_plan(_expand_v2(v, plan), plan.perm_plan)
 
     if x_full:
         validc = plan.valid_dst_order
@@ -710,17 +651,12 @@ def spmv_masked(plan: SpmvPlan, x, xs, add="plus", mul="times", x_full=False, wr
 
     if mul == "pair":
         # pair/oneb: every valid contribution is exactly 1, so ONE segmented
-        # count scan over the validity channel answers both the values and
-        # the structure — no value-channel expand (two networks), no second
-        # scan, no second collect.  plus -> the count; min/max/any -> 1.
-        cnt = segmented_scan(validc.astype(x.dtype), seg_start, "add", interpret=interp)
-        if v2:
-            ycnt = _collect_v2(cnt, plan, jnp.zeros((), cnt.dtype))
-            ys = plan.dst_nonempty & (ycnt > 0) if not x_full else plan.dst_nonempty
-        else:
-            cpad = jnp.concatenate([jnp.zeros((1,), cnt.dtype), cnt])
-            ycnt = cpad[ends]
-            ys = (ycnt > 0) & (starts != ends)
+        # count over the validity channel answers both the values and the
+        # structure — no value-channel expand (two networks), no second
+        # reduce, no second collect.  plus -> the count; min/max/any -> 1.
+        cnt = _count_dst(plan, validc, x.dtype)
+        ycnt = _collect_v2(cnt, plan, jnp.zeros((), cnt.dtype))
+        ys = plan.dst_nonempty & (ycnt > 0) if not x_full else plan.dst_nonempty
         one = jnp.ones((), ycnt.dtype)
         yv = ycnt if add == "plus" else jnp.where(ycnt > 0, one, jnp.zeros((), ycnt.dtype))
         if wrap is not None and add == "plus":
@@ -739,25 +675,17 @@ def spmv_masked(plan: SpmvPlan, x, xs, add="plus", mul="times", x_full=False, wr
         w = plan.w_dst_order if mul in ("times", "plus", "second") else None
         if w is not None and w.dtype != xe_dst.dtype:
             # channel mismatch (e.g. bool matrix weights with an f32 x):
-            # align dtypes ahead of the fused kernel
+            # align dtypes ahead of the fused reduce
             w = w.astype(xe_dst.dtype)
         chan_mul = mul
-    scanned = segmented_scan_contrib(xe_dst, w, validc, seg_start, op, chan_mul, interpret=interp, wrap=wrap)
+    scanned = _reduce_dst(plan, xe_dst, w, validc, op, chan_mul, wrap=wrap)
     ident = _ident_of(scanned.dtype, "max" if add == "any" else add)
-
-    if v2:
-        if x_full:
-            ys = plan.dst_nonempty
-        else:
-            cnt = segmented_scan(validc.astype(jnp.float32), seg_start, "add", interpret=interp)
-            ys = plan.dst_nonempty & (_collect_v2(cnt, plan, jnp.float32(0)) > 0)
-        yv = _collect_v2(scanned, plan, ident)
+    if x_full:
+        ys = plan.dst_nonempty
     else:
-        padded = jnp.concatenate([jnp.full((1,), ident, scanned.dtype), scanned])
-        yv = padded[ends]
-        cnt = segmented_scan(validc.astype(jnp.float32), seg_start, "add", interpret=interp)
-        cpad = jnp.concatenate([jnp.zeros((1,), jnp.float32), cnt])
-        ys = (cpad[ends] > 0) & (starts != ends)
+        cnt = _count_dst(plan, validc, jnp.float32)
+        ys = plan.dst_nonempty & (_collect_v2(cnt, plan, jnp.float32(0)) > 0)
+    yv = _collect_v2(scanned, plan, ident)
     return jnp.where(ys, yv, jnp.zeros((), yv.dtype)), ys
 
 
@@ -766,31 +694,13 @@ def spmv_masked(plan: SpmvPlan, x, xs, add="plus", mul="times", x_full=False, wr
 def spmv(plan: SpmvPlan, x, add="plus", mul="times"):
     """y[d] = ADD over edges (s->d) of (x[s] MUL w).  add in {plus,min,max};
     mul in {times,plus,first,second}.  Absent/invalid edges contribute the
-    ADD identity.  The per-edge multiply + validity mask + segmented reduce
-    scan run as ONE fused Pallas kernel."""
-    from .pallas_scan import segmented_scan_contrib
-
-    v2 = plan.place_plan is not None
-    if v2:
-        xe = _expand_v2(x, plan)
-        seg_start = plan.seg_start_dst
-    else:
-        xe = _expand_src_sorted(x, plan.indptr_src, plan.e_pad)
-        ends = plan.indptr_dst[1:]
-        starts = plan.indptr_dst[:-1]
-        seg_start = jnp.zeros(plan.e_pad, bool).at[starts].set(True)
-    xe_dst = apply_plan(xe, plan.perm_plan)
+    ADD identity.  The per-edge multiply + validity mask fuse into the
+    segmented reduce."""
+    xe_dst = apply_plan(_expand_v2(x, plan), plan.perm_plan)
     w = plan.w_dst_order if mul in ("times", "plus", "second") else None
     op = {"plus": "add", "min": "min", "max": "max"}[add]
-    scanned = segmented_scan_contrib(
-        xe_dst, w, plan.valid_dst_order, seg_start, op, mul, interpret=_interpret_scan()
-    )
-    ident = _ident_of(scanned.dtype, add)
-    if v2:
-        return _collect_v2(scanned, plan, ident)
-    padded = jnp.concatenate([jnp.full((1,), ident, scanned.dtype), scanned])
-    out = padded[ends]
-    return jnp.where(starts == ends, ident, out)
+    scanned = _reduce_dst(plan, xe_dst, w, plan.valid_dst_order, op, mul)
+    return _collect_v2(scanned, plan, _ident_of(scanned.dtype, add))
 
 
 # ---------------------------------------------------------------------------
@@ -805,9 +715,9 @@ def spmv(plan: SpmvPlan, x, add="plus", mul="times"):
 #
 #     state (totals at dst-seg-LAST slots)
 #       --loop_plan-->  x at src-seg-START slots   [1 network]
-#       --fill scan-->  x[src] per edge, src order
+#       --fill------->  x[src] per edge, src order
 #       --perm_plan-->  dst order                  [1 network]
-#       --contrib scan--> new state (totals at dst-seg-last slots)
+#       --reduce----->  new state (totals at dst-seg-last slots)
 #
 # The elementwise update runs in the e_pad layout (masked to the meaningful
 # slots); one final `collect` back to n-space is paid once per ALGORITHM,
@@ -815,24 +725,19 @@ def spmv(plan: SpmvPlan, x, add="plus", mul="times"):
 
 
 def spmv_state(plan: SpmvPlan, x_start, add, mul, w=None):
-    """One loop-layout SpMV step: values at src-seg-start slots -> running
-    segmented aggregates whose dst-seg-LAST slots hold y[d].
+    """One loop-layout SpMV step: values at src-seg-start slots -> the dst
+    segment totals, whose dst-seg-LAST slots hold y[d].
 
     ``x_start`` must carry the source values exactly at ``seg_start_src``
-    slots (other slots are ignored by the fill scan).  Returns the full
-    scanned array (state layout); read it at ``is_last_dst`` slots.
+    slots (other slots are ignored by the fill).  Returns the e_pad array
+    (state layout); read it at ``is_last_dst`` slots.
     """
-    from .pallas_scan import segmented_scan, segmented_scan_contrib
-
-    interp = _interpret_scan()
     xe = _seg_fill(plan, x_start)
     xe_dst = apply_plan(xe, plan.perm_plan)
     if w is None:
         w = plan.w_dst_order if mul in ("times", "plus", "second") else None
     op = {"plus": "add", "min": "min", "max": "max", "any": "max"}[add]
-    return segmented_scan_contrib(
-        xe_dst, w, plan.valid_dst_order, plan.seg_start_dst, op, mul, interpret=interp
-    )
+    return _reduce_dst(plan, xe_dst, w, plan.valid_dst_order, op, mul)
 
 
 def state_to_start(plan: SpmvPlan, v_state, fill_value):
@@ -845,12 +750,14 @@ def state_to_start(plan: SpmvPlan, v_state, fill_value):
 
 def state_to_start_post(plan: SpmvPlan, v_state, postlude, aux=(), scalars=()):
     """``state_to_start`` with the masking select (and any further pointwise
-    prep — degree divide, source inject) fused INTO the loop network's final
-    lane-shuffle kernel: ``postlude(routed, aux, scalars)`` must itself apply
-    the ``start_has_state`` select.  Saves 2-3 full e_pad HBM passes per loop
-    iteration (the 'x_start wheres' in the round-2 iteration anatomy)."""
-    return apply_plan(
-        v_state, plan.loop_plan, postlude=postlude, post_aux=aux, post_scalars=scalars
+    prep — degree divide, source inject) applied as the loop network's
+    epilogue: ``postlude(routed, aux, scalars)`` must itself apply the
+    ``start_has_state`` select.  XLA fuses it into the final shuffle."""
+    routed = apply_plan(v_state, plan.loop_plan)
+    return postlude(
+        routed,
+        tuple(jnp.asarray(a) for a in aux),
+        tuple(jnp.asarray(s).reshape(()) for s in scalars),
     )
 
 

@@ -4,7 +4,7 @@ The reference has no distributed layer (SURVEY.md §2.2); its resource-scoping
 hook is ``gb.ss.Context`` (thread/GPU control, reference:
 core/ss/context.py:19-151).  Here the analogue scopes a ``jax.sharding.Mesh``:
 collections shard as 2D blocks over the mesh, semiring mxm runs SUMMA-style
-over ICI collectives (see ``summa``), and masks/vectors co-shard.
+over mesh collectives (see ``summa``), and masks/vectors co-shard.
 """
 
 import threading
@@ -86,7 +86,7 @@ def shard_matrix(A, context=None, *, spec=None):
     """Shard a Matrix's device arrays as 2D blocks over the mesh (in place).
 
     The reference's user-level block decomposition hooks are
-    ``Matrix.ss.split`` / ``gb.ss.concat`` (core/ss/matrix.py:280,362); on TPU
+    ``Matrix.ss.split`` / ``gb.ss.concat`` (core/ss/matrix.py:280,362); here
     the split is a sharding annotation — XLA moves the blocks.
     """
     import jax

@@ -14,7 +14,7 @@ extension:
 - x replicates (frontier/rank vectors are n-sized — tiny next to the edge
   space); each device produces the full-length y with its own destinations
   filled and the monoid identity elsewhere, and ONE collective per SpMV
-  (`psum` / `pmin` / `pmax` over the mesh axis) combines them — riding ICI,
+  (`psum` / `pmin` / `pmax` over the mesh axis) combines them,
   chosen by the add-monoid.
 
 Plans stack leaf-wise (SpmvPlan and PermutePlan are pytrees), shard over a

@@ -3,7 +3,7 @@
 Reference shape: the masked ``plus_pair`` triangle-counting product
 C(L.S) = L plus_pair U (notebooks/Louvain.ipynb, reference
 core/matrix.py:2264-2331 GrB_mxm with mask).  The reference itself has no
-distribution (SURVEY §2.2); the TPU-native design here:
+distribution (SURVEY §2.2); the design here:
 
 - **Partition by mask-row blocks.**  Output entries are disjoint across
   blocks, so the product is embarrassingly parallel: device d computes the
@@ -15,8 +15,8 @@ distribution (SURVEY §2.2); the TPU-native design here:
   dispatches are async, so the devices run concurrently).
 - **Operands replicate.**  A's rows outside the block are never touched by
   the block's tasks; B is consumed column-wise by every block.  At GAP
-  scale the operand COO is ~100 MB — replication is the right trade on a
-  v5p pod slice (ICI all-gather of B would cost more than holding it).
+  scale the operand COO is ~100 MB — replication is the right trade (an
+  all-gather of B would cost more than holding it).
 - The per-device execution is the single-chip engine unchanged
   (core/sparse.sparse_spgemm_analyze/execute): pattern analysis once per
   (A, B, M, partition), values re-executable.

@@ -3,7 +3,7 @@
 Design (per SURVEY.md §2.2 north star): dense-masked blocks shard as
 P('i', 'j') over a 2-D mesh; C = A ·⊕⊗· B computes local block products and
 combines partials across the contraction axis with the semiring's add monoid
-— ``lax.psum`` over ICI when the monoid is plus, ``all_gather`` + on-device
+— ``lax.psum`` over the mesh when the monoid is plus, ``all_gather`` + on-device
 monoid tree otherwise.  Edge-partitioned SpMV shards the edge list across the
 whole mesh and psum-combines destination segments.
 """

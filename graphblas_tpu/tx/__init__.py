@@ -1,4 +1,4 @@
-"""``graphblas_tpu.tx``: TPU-engine extension namespace.
+"""``graphblas_tpu.tx``: engine extension namespace.
 
 Analogue of ``graphblas.ss`` (reference: /root/reference/graphblas/ss/_core.py):
 free functions (diag, concat), the global engine config, and an About mapping.
@@ -14,11 +14,11 @@ from ..core import dtypes as _dt
 config = Config(
     "graphblas_tpu.tx",
     defaults={
-        # mxm lowering strategy: "auto" picks MXU forms when available
+        # mxm lowering strategy: "auto" picks matmul forms when available
         "mxm_strategy": "auto",
         # generic-mxm k-chunk size
         "mxm_chunk": 128,
-        # default device platform preference ("tpu" > "cpu")
+        # default device platform preference ("gpu" > "cpu")
         "platform": "auto",
         # print engine dispatch diagnostics (analogue of SuiteSparse burble)
         "burble": False,

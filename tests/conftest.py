@@ -1,21 +1,23 @@
 """Test harness.
 
 Mirrors the reference harness idea (reference: /root/reference/conftest.py and
-graphblas/tests/conftest.py): a randomized-config matrix.  The new axes are
-platform (CPU-sim for tests; the engine is identical on TPU) and a virtual
-8-device mesh for sharding tests (driver contract: tests must run without
-real multi-chip hardware).
+graphblas/tests/conftest.py): a randomized-config matrix.  Tests run on the
+CPU with a virtual 8-device mesh for the sharding tests, so they need no
+accelerator.  Tests marked ``gpu`` take the ``gpu`` fixture, which skips
+them unless JAX's first device is a GPU; run them on a card with
+
+    GRAPHBLAS_TEST_GPU=1 python -m pytest tests/ -m gpu
 """
 
 import os
 
 # Must be set before jax (or graphblas_tpu) is imported anywhere.
-os.environ.setdefault("GRAPHBLAS_TPU_PLATFORM", "cpu")
-# Tests always run on CPU, even when a TPU plugin env pinned JAX_PLATFORMS.
-os.environ["JAX_PLATFORMS"] = "cpu"
-flags = os.environ.get("XLA_FLAGS", "")
-if "host_platform_device_count" not in flags:
-    os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
+if os.environ.get("GRAPHBLAS_TEST_GPU") != "1":
+    os.environ.setdefault("GRAPHBLAS_TPU_PLATFORM", "cpu")
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
 
 import random
 import time
@@ -27,7 +29,7 @@ import pytest
 # Randomized-config matrix (reference: graphblas/tests/conftest.py:60-150
 # randomizes backend x blocking x mapnumpy x record every run).  Every axis is
 # drawn from a printed, re-pinnable seed so a default `pytest tests/`
-# exercises the mxu/pallas lowerings, blocking mode, and mapnumpy aliasing
+# exercises the matmul/pallas lowerings, blocking mode, and mapnumpy aliasing
 # instead of letting those paths rot behind opt-in env vars.
 #
 # Pin any axis (or reproduce a run) with:
@@ -117,6 +119,18 @@ def pytest_collection_modifyitems(config, items):
 def rng():
     seed = int(os.environ.get("GRAPHBLAS_TEST_SEED", "42"))
     return np.random.default_rng(seed)
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX's first device is a GPU (decided at run time, never at
+    collection, so every xdist worker collects the same tests)."""
+    import jax
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        pytest.skip(f"needs a GPU; JAX's first device is {dev.platform}")
+    return dev
 
 
 @pytest.fixture

@@ -22,12 +22,31 @@ from graphblas_tpu.models import dsl
 @pytest.fixture(autouse=True)
 def _force_sparse_matrices(monkeypatch):
     # matrices (n*n cells) sparse-backed, vectors (n) dense — the big-graph
-    # storage shape the edge layout targets
+    # storage shape the edge layout targets.  The edge layout is a
+    # plan-engine feature: pin mxv_strategy="plan" (under "auto" compiled
+    # loops stay on gather+segment; see test_auto_loop_builds_no_plan)
     old = gb.tx.config.get("dense_limit")
     gb.tx.config["dense_limit"] = 20000
     monkeypatch.setenv("GRAPHBLAS_TPU_DSL_EDGE_LAYOUT", "1")
-    yield
+    with gb.tx.config.set(mxv_strategy="plan"):
+        yield
     gb.tx.config["dense_limit"] = old
+
+
+def test_auto_loop_builds_no_plan():
+    """Under mxv_strategy="auto" a compiled DSL loop runs gather+segment:
+    no network plan is built on the host and the layout stays n-space."""
+    r, c, w, n = _graph(seed=31)
+    AT = Matrix.from_coo(r, c, w, nrows=n, ncols=n)
+    with gb.tx.config.set(mxv_strategy="auto"):
+        runner = dsl.pagerank_runner(AT, max_iters=5)
+        got = np.asarray(runner().to_dense(fill_value=0.0))
+    assert runner.layout == "n"
+    assert AT._sparse._plans == {}
+    with gb.tx.config.set(mxv_strategy="plan"):
+        ref = np.asarray(dsl.pagerank_runner(AT, max_iters=5)().to_dense(fill_value=0.0))
+    assert set(AT._sparse._plans) == {"pull"}
+    np.testing.assert_allclose(got, ref, atol=1e-6)
 
 
 def _graph(n=200, e=900, seed=7, indeg0_tail=50):

@@ -373,9 +373,7 @@ def test_64bit_execution_contract():
     from graphblas_tpu import Vector, binary, monoid
     from graphblas_tpu.core import dtypes as dtm
 
-    assert dtm.executes_64bit() == (
-        bool(jax.config.jax_enable_x64) and jax.default_backend() != "tpu"
-    )
+    assert dtm.executes_64bit() == bool(jax.config.jax_enable_x64)
     if dtm.executes_64bit():
         assert dtm.default_float() is dtm.FP64
         assert dtm.default_int() is dtm.INT64

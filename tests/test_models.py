@@ -101,7 +101,7 @@ def test_sssp_as_vector(random_graph):
 
     g, *_ = random_graph
     v = sssp(g, 0, as_vector=True)
-    # platform-adaptive output dtype: FP64 on 64-bit platforms, FP32 on TPU
+    # platform-adaptive output dtype: FP64 under the 64-bit policy, else FP32
     # (the 64-bit execution contract, docs/types.md)
     assert v.dtype is dtm.default_float()
     assert v[0].new().value == 0.0

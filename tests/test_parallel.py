@@ -4,7 +4,7 @@ The conftest forces ``--xla_force_host_platform_device_count=8``, so every
 test here runs SUMMA / sharded-SpMV collectives for real across 8 devices
 (driver contract: multi-chip shardings must be validated without hardware).
 Reference analogue: the reference has no distributed layer (SURVEY.md §2.2);
-these validate the new TPU-native design against the single-device oracle.
+these validate the new design against the single-device oracle.
 """
 
 import numpy as np

@@ -28,7 +28,7 @@ def test_plan_roundtrip(rng, n):
     perm = rng.permutation(n)
     plan = build_permutation_plan(perm)
     x = np.arange(n, dtype=np.float32)
-    out = np.asarray(apply_plan(jnp.asarray(x), plan, pallas=False))
+    out = np.asarray(apply_plan(jnp.asarray(x), plan))
     np.testing.assert_array_equal(out, x[perm])
 
 
@@ -40,7 +40,7 @@ def test_plan_two_level(rng):
     perm = rng.permutation(n)
     plan = build_permutation_plan(perm, validate=False)
     x = rng.random(n).astype(np.float32)
-    out = np.asarray(apply_plan(jnp.asarray(x), plan, pallas=False))
+    out = np.asarray(apply_plan(jnp.asarray(x), plan))
     np.testing.assert_array_equal(out, x[perm])
 
 
@@ -313,7 +313,7 @@ def test_rowsel_shuffle_cache_converts_to_select(tmp_path, monkeypatch):
     assert "RSEL" in kinds2 and "ROWSEL" not in kinds2
 
     x = rng.random(n).astype(np.float32)
-    out = np.asarray(apply_plan(x, loaded, pallas=False))
+    out = np.asarray(apply_plan(x, loaded))
     np.testing.assert_array_equal(out, x[perm])
 
     # direct table round-trip

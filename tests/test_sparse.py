@@ -299,7 +299,7 @@ def test_masked_spgemm_hub_splitting(rng):
 
 
 def test_masked_spgemm_brick_path(rng):
-    """Block-dense MXU brick path vs the pure eq-join plan and the dense
+    """Block-dense brick matmul path vs the pure eq-join plan and the dense
     oracle (clustered graph: dense diagonal bricks + random sparse edges)."""
     from graphblas_tpu.core.operator import get_typed_op
     from graphblas_tpu.core.sparse import sparse_spgemm_analyze, sparse_spgemm_execute
@@ -329,7 +329,7 @@ def test_masked_spgemm_brick_path(rng):
         r0, c0, v0, f0 = sparse_spgemm_execute(plain, sr, dtypes.FP32)
         r1, c1, v1, f1 = sparse_spgemm_execute(bricky, sr, dtypes.FP32)
         assert f0 == f1, (srname, f0, f1)
-        # same pattern; values may differ by f32 summation order (MXU brick
+        # same pattern; values may differ by f32 summation order (brick
         # accumulation vs eq-join task order)
         d0 = dict(zip(zip(r0.tolist(), c0.tolist()), v0.tolist()))
         d1 = dict(zip(zip(r1.tolist(), c1.tolist()), v1.tolist()))
